@@ -1,6 +1,6 @@
-"""bfqzip_tpu — TPU-native lossy FASTQ compression via the Extended Burrows-Wheeler Transform.
+"""bfqzip_tpu — lossy FASTQ compression on an accelerator via the Extended Burrows-Wheeler Transform.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of veronicaguerrini/BFQzip
+A ground-up JAX/XLA re-design of the capabilities of veronicaguerrini/BFQzip
 (reference layout: BFQzip.py, src_int_mem/bfq_int.cpp, src_ext_mem/bfq_ext.cpp):
 
   1. EBWT + quality-permutation + LCP construction as a prefix-doubling sort pipeline
@@ -17,7 +17,7 @@ A ground-up JAX/XLA/Pallas re-design of the capabilities of veronicaguerrini/BFQ
 
 The package is organised as:
   bfqzip_tpu.io        — FASTQ parsing/serialisation (numpy + native C++ backend)
-  bfqzip_tpu.ops       — the TPU compute path (suffix sort, LCP, cluster, smooth,
+  bfqzip_tpu.ops       — the device compute path (suffix sort, LCP, cluster, smooth,
                          invert, rank/LF, entropy coding)
   bfqzip_tpu.models    — smoothing-strategy models (M=0..3) + entropy context models
   bfqzip_tpu.parallel  — device meshes, data-parallel block pipeline, sharded sort

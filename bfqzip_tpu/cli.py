@@ -21,7 +21,7 @@ import time
 def build_parser():
     p = argparse.ArgumentParser(
         prog="bfqzip_tpu",
-        description="TPU-native lossy FASTQ compression via the EBWT",
+        description="lossy FASTQ compression via the EBWT, on an accelerator through JAX",
     )
     p.add_argument("input", nargs="+", help="input FASTQ file(s); two files with --paired")
     p.add_argument("-o", "--out", default="", help="output base name (default: input name)")
@@ -76,7 +76,9 @@ def main(argv=None) -> int:
     if args.cpu:
         os.environ["JAX_PLATFORMS"] = "cpu"
     os.environ.setdefault("JAX_ENABLE_X64", "1")  # M=1 parity with C doubles
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", os.path.expanduser("~/.jax_cache"))
+    from bfqzip_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     if args.decompress:
         from bfqzip_tpu.pipeline import decompress_stream

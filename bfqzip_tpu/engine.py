@@ -1,7 +1,7 @@
 """Single-device end-to-end engine: FASTQ batch -> smoothed FASTQ batch.
 
 This is the jitted composition of the compute path (build_ebwt -> smooth ->
-lf -> invert), the TPU equivalent of one `bfq_int` invocation
+lf -> invert), the device equivalent of one `bfq_int` invocation
 (reference BFQzip.py:206-228).  Shapes are static in (N, L); the pipeline is
 recompiled per shape bucket and cached by jax.
 """
@@ -71,9 +71,7 @@ def smooth_fastq(
     trimmed back to the original read count.
     """
     from bfqzip_tpu.io.fastq import pad_batch
-    from bfqzip_tpu.ops import pallas_scan
 
-    pallas_scan.ensure_calibrated()  # auto Pallas/XLA pick; no-op mid-trace
     cfg = cfg or SmoothConfig()
     run = pad_batch(batch) if bucket else batch
     inv, stats = smooth_step(

@@ -2,7 +2,7 @@
 
 The reference's external-memory engine streams pile-partitioned BWT files and
 an explicit 1-byte LCP from disk (src_ext_mem/bfq_ext.cpp:190-412), built by
-eGap under a --mem budget (BFQzip_ext.py:172-177).  The TPU-native analog
+eGap under a --mem budget (BFQzip_ext.py:172-177).  The analog here
 keeps the DEVICE footprint bounded by a memory budget and the full arrays in
 host RAM:
 
@@ -266,9 +266,7 @@ def smooth_fastq_external(
     import resource
 
     from bfqzip_tpu.io.spill import Spill
-    from bfqzip_tpu.ops import pallas_scan
 
-    pallas_scan.ensure_calibrated()  # auto Pallas/XLA pick; no-op mid-trace
     cfg = cfg or SmoothConfig()
     if not native.ext_merge_available():
         raise RuntimeError("external mode needs the native library (make -C native)")
@@ -445,11 +443,9 @@ def smooth_fastq_external(
     # merge || smooth overlap: the host merge threads and the device
     # smoothing segments use disjoint resources, so stage 2 consumes the
     # merged PREFIX live (the merge workers publish per-range cursors and
-    # only mark a range complete after fixing its successor's boundary LCP).
-    # This is the genuinely-parallel counterpart of the single-chip stage
-    # overlap that measured ~0 (tools/exp_overlap.py: one XLA program at a
-    # time); here the merge wall hides behind the smoothing wall (or vice
-    # versa).  BFQ_EXT_OVERLAP=0 restores the serial stages.
+    # only mark a range complete after fixing its successor's boundary LCP),
+    # so the merge wall hides behind the smoothing wall (or vice versa).
+    # BFQ_EXT_OVERLAP=0 restores the serial stages.
     overlap = (os.environ.get("BFQ_EXT_OVERLAP", "1") != "0"
                and native.ext_merge_async_available())
     merge_state = {"done": False}

@@ -54,7 +54,7 @@ class ReadBatch:
 def bucket_shape(n_reads: int, width: int) -> tuple[int, int]:
     """Round a batch shape up to a small set of compile buckets.
 
-    XLA:TPU recompiles per shape and wide variadic sorts compile slowly, so
+    XLA recompiles per shape and wide variadic sorts compile slowly, so
     arbitrary dataset sizes are padded to (1, 1.25, 1.5, 1.75) x 2^k reads
     and a multiple-of-16 width (<= 33% wasted rows, amortised by the
     persistent compilation cache).  Width multiples of 16 also keep
@@ -70,8 +70,9 @@ def bucket_shape(n_reads: int, width: int) -> tuple[int, int]:
     return n, w
 
 
-def pad_batch(batch: ReadBatch) -> ReadBatch:
-    """Pad a batch to its compile bucket with dummy rows of length -1.
+def pad_batch(batch: ReadBatch, shape: Optional[tuple[int, int]] = None) -> ReadBatch:
+    """Pad a batch to its compile bucket (or to `shape`) with dummy rows of
+    length -1.
 
     Dummy rows contribute NOTHING to the EBWT (no terminator, no suffixes —
     ops/suffix.py treats length -1 as all-padding), so the pipeline output on
@@ -79,7 +80,7 @@ def pad_batch(batch: ReadBatch) -> ReadBatch:
     callers trim with `batch.num_reads` rows of the result.
     """
     n0, w0 = batch.num_reads, batch.max_len
-    n1, w1 = bucket_shape(n0, w0)
+    n1, w1 = shape or bucket_shape(n0, w0)
     if (n1, w1) == (n0, w0):
         return batch
     seqs = np.zeros((n1, w1), np.uint8)

@@ -53,8 +53,8 @@ def invert_via_sa(
     FASTQ is ONE permutation of (base, quality) back to read coordinates,
     replacing the reference's n sequential LF steps (bfq_int.cpp:775-791)
     entirely.  (SA-1) mod n_pad is a bijection over text slots, so the
-    permutation is applied as one 2-operand key/value sort — cheaper than a
-    20M-element scatter on TPU (~105ms vs ~170ms measured on v5e).  The
+    permutation is applied as one 2-operand key/value sort (whether a
+    scatter is cheaper on the GPU is ROADMAP A3's question).  The
     LF-walk variant below remains for resuming from on-disk artifacts,
     which carry no SA."""
     if binning:
@@ -66,8 +66,7 @@ def invert_via_sa(
     target = (sa - 1) % n_pad  # dense: every text slot receives exactly one entry
     packed = jnp.where(is_char, (qs.astype(jnp.int32) << 8) | bwt_sub.astype(jnp.int32), 0)
     # the key is a permutation (all distinct), so the unstable comparator is
-    # safe and ~29% faster (76 vs 107 ms at 20.4M on v5e,
-    # tools/exp_unstable_sort.py)
+    # safe
     _, grid_flat = jax.lax.sort((target, packed), num_keys=1, is_stable=False)
     grid = grid_flat.reshape(n_reads, wp)
     seqs = (grid[:, :width] & 0xFF).astype(jnp.uint8)

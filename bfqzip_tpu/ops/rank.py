@@ -2,7 +2,7 @@
 
 The reference answers rank queries with a succinct bit-parallel structure
 (dna_string_n.hpp:152-185) and LF as C[c] + rank_c(i) (dna_bwt_n.hpp:78-101).
-On TPU the same information is one exclusive prefix-sum per symbol — the
+On the device the same information is one exclusive prefix-sum per symbol — the
 vectorised form of the external-memory variant's tableOcc + vectorOcc two-level
 counts (decode.cpp:87-235).
 """

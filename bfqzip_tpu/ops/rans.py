@@ -1,6 +1,6 @@
 """Interleaved rANS entropy coder with static context models.
 
-TPU-native replacement for the reference's step-5 compressors (7z PPMd and
+A JAX replacement for the reference's step-5 compressors (7z PPMd and
 libbsc, BFQzip.py:22-23,253-275).  Design:
 
   * rans32: 32-bit states, 16-bit renormalisation, 12-bit quantised
@@ -13,7 +13,7 @@ libbsc, BFQzip.py:22-23,253-275).  Design:
   * models are static two-pass tables per context (models/context.py) — the
     explicit, vectorisable counterpart of PPMd's adaptive contexts.
 
-Both encode and decode are jax.lax.scan programs; they run on TPU or CPU.
+Both encode and decode are jax.lax.scan programs; they run on the accelerator or the CPU.
 The container is self-describing (tables + final states in the header).
 """
 

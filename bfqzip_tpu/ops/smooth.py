@@ -3,11 +3,9 @@
 Replaces the sequential cluster scan and per-cluster loops of the reference
 (bfq_int.cpp:376-737) with SEGMENTED SCANS over the whole EBWT.  The round-1
 design kept per-cluster arrays addressed by gather/scatter (cluster-id
-expansion, end-sampling of prefix sums); measurement on v5e
-(tools/bench_prims.py) showed every multi-million-index gather/scatter costs
-170-200 ms at 20M elements while 1-D scans cost ~0.1 ms, so this version
-keeps ALL per-cluster state in scan form and never materialises a
-cluster-indexed array:
+expansion, end-sampling of prefix sums); this version keeps ALL
+per-cluster state in scan form and never materialises a cluster-indexed
+array:
 
   * LCP_threshold / LCP_minima are elementwise predicates on the explicit LCP
     array (the LCP-array form of the suffix-tree traversal, see

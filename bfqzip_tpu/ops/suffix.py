@@ -19,9 +19,7 @@ used as a mask.
 
 Sort — flat path (reads up to ~300bp, the production case)
 ----
-Random gathers and scatters are the expensive primitives on TPU (~8x the cost
-of one extra sort operand at 20M elements, measured on v5e), so the flat path
-issues NONE: the ENTIRE suffix window (L+1 symbols) is packed into
+The flat path issues no random gathers or scatters: the ENTIRE suffix window (L+1 symbols) is packed into
 ceil((L+1)/PACK6) base-6 u32 key words (PACK6 = 12 digits per word,
 6^12 < 2^32; terminator/padding -> digit 0 < bases 1..5; symbols after the
 terminator zeroed) and suffix order is ONE variadic XLA sort.  Prefix-equal
@@ -138,14 +136,14 @@ def _build_ebwt_flat(seqs: jax.Array, quals: jax.Array, lengths: jax.Array) -> E
     """One variadic sort over whole-window packed keys; no random gathers.
 
     Key layout per suffix g = r*(L+1) + k (see module docstring): W base-6
-    u32 words covering symbols k..k+wp-1 (12 symbols per word — measured on
-    v5e, sort cost scales with operand+key count, so base-6 beats the round-1
-    3-bit packing by two words at 101bp).  Equal window content implies equal
+    u32 words covering symbols k..k+wp-1 (12 symbols per word, two words
+    fewer than a 3-bit packing at 101bp; sort cost grows with the number of
+    operands and keys).  Equal window content implies equal
     distance to the terminator, so among fully tied suffixes position order
     equals read order (the distinct-terminator convention); the suffix
     position (doubling as the SA) rides as the FINAL key, which makes the
     key set a total order and lets the unstable comparator realise that
-    order (~5% faster than stable keys, tools/exp_unstable_sort.py).  The
+    order.  The
     payload word carries the two preceding text symbols + preceding
     quality, so BWT/QS/pre come out of the sort directly.
     """
@@ -198,9 +196,7 @@ def _build_ebwt_flat(seqs: jax.Array, quals: jax.Array, lengths: jax.Array) -> E
     # position order g = r*wp + k IS read-index order — gsufsort's
     # distinct-terminator convention — and equal padding rows order by
     # position deterministically.  With a total order the comparator may be
-    # UNSTABLE, which measures ~5% faster than the stable 9-key sort that
-    # realised the same tie-break through stability (337 vs 355 ms at 20.4M
-    # on v5e; byte-identical outputs, tools/exp_unstable_sort.py).
+    # UNSTABLE, with byte-identical outputs.
     sorted_ops = jax.lax.sort((*words, idx0, aux), num_keys=n_words + 1, is_stable=False)
     skeys, sa, saux = sorted_ops[:n_words], sorted_ops[-2], sorted_ops[-1]
 
@@ -317,8 +313,7 @@ def _build_ebwt_doubling(seqs: jax.Array, quals: jax.Array, lengths: jax.Array) 
     # b+h land on base/terminator slots of valid rows (h <= lcp keeps the
     # offset within the read), so the padding-key masking of w0 is never
     # observed here — use the unmasked word array.
-    # NB: keep these gathers strictly 1-D — an [n, W] gather gets tiled to
-    # (8,128) lanes by XLA:TPU, a ~40x memory blowup at scale.
+    # NB: these gathers are kept strictly 1-D, one per key word.
     rem = jnp.zeros((n_pad,), jnp.int32)
     nz = jnp.ones((n_pad,), bool)  # no zero group seen yet
     eq = jnp.ones((n_pad,), bool)  # all groups equal so far

@@ -9,7 +9,7 @@ axis — the path with no ratio cost, for collections larger than one chip:
     (row-aligned: each shard owns whole reads);
   * every prefix-doubling round is a distributed sample sort of
     (rank<<31 | rank_ahead+1) 64-bit keys: local sort -> splitter agreement
-    (all_gather) -> fixed-capacity bucket exchange (all_to_all over ICI) ->
+    (all_gather) -> fixed-capacity bucket exchange (all_to_all) ->
     local merge;
   * rank_ahead needs only a halo exchange with the next shard (ppermute),
     because position shards are contiguous;
@@ -20,7 +20,7 @@ axis — the path with no ratio cost, for collections larger than one chip:
   * BWT/QS extraction and LCP lifting use a generic routed global gather
     (requests grouped by target shard, two all_to_alls).
 
-This is the TPU equivalent of upgrading the reference's external-memory pile
+This is the device equivalent of upgrading the reference's external-memory pile
 partitioning (bfq_ext.cpp:190-348) from 6 static disk piles to D dynamic
 device shards.  x64 must be enabled (64-bit sort keys).
 

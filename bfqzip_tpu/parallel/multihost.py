@@ -3,9 +3,9 @@
 The reference's only scale-out is single-machine threads
 (BFQzip_parallel.py:104-119).  Here the same global-EBWT kernel that runs on
 one host's devices (parallel/global_pipeline.py) runs unchanged across hosts:
-`jax.distributed` brings every host's chips into one global device list, the
-mesh axis spans them, and the kernel's collectives (all_to_all bucket
-exchanges over ICI within a host, DCN across hosts) need no code changes —
+`jax.distributed` brings every host's devices into one global device list,
+the mesh axis spans them, and the kernel's collectives (all_to_all bucket
+exchanges) need no code changes —
 each process only feeds its local read shard and receives its local output
 shard.
 

@@ -2,8 +2,8 @@
 
 Building block for the sequence-sharded (multi-chip) EBWT: the global suffix
 sort becomes  local sort -> splitter agreement (all_gather of local samples)
--> bucket exchange (all_to_all over ICI) -> local merge.  This is the
-TPU-native replacement for the reference's external-memory pile partitioning
+-> bucket exchange (all_to_all) -> local merge.  This is the
+device replacement for the reference's external-memory pile partitioning
 (bfq_ext.cpp:190-348), whose alphabet piles are a 6-way static bucket
 exchange on disk.
 

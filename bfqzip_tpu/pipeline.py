@@ -4,7 +4,7 @@ The reference drives five subprocess stages through files on disk
 (BFQzip.py:91-145) and caches the expensive EBWT build (BFQzip.py:93-104).
 This module keeps that resumability contract — every stage boundary is a
 durable artifact, `rebuild` forces stage 1 — but the stages are library calls
-into the jitted TPU engine instead of process boundaries:
+into the jitted device engine instead of process boundaries:
 
   step 1  EBWT + QS permutation (+ LCP)  -> OUT.bwt, OUT.bwt.qs, OUT.lcp, OUT.meta.json
   step 2  headers                        -> OUT.h            (BFQzip.py:192-203)
@@ -390,6 +390,7 @@ def run_pipeline(
     base = out_base or inputs[0]
     log = StepLogger(logfile or base + ".log")
     log.command_line()
+    log.devices()
 
     # ---- input / validation (checkFASTQ.py semantics via the parser) ----
     _spill = None
@@ -453,10 +454,7 @@ def run_pipeline(
         import jax
 
         jax.config.update("jax_enable_x64", True)  # i64 sort keys
-        from bfqzip_tpu.ops import pallas_scan
         from bfqzip_tpu.parallel import make_mesh, smooth_fastq_sharded
-
-        pallas_scan.ensure_calibrated()  # resolve before shard_map tracing
 
         mesh = make_mesh((1, mesh_shards))
         with log.step(f"steps1-3: sequence-sharded over {mesh_shards} devices"):
@@ -604,10 +602,6 @@ def _blockwise_step1_3(batch, base, cfg, blocks, log, paired_split=None):
     the engine under one cached compilation."""
     import jax
 
-    from bfqzip_tpu.engine import smooth_fastq
-    from bfqzip_tpu.ops import pallas_scan
-
-    pallas_scan.ensure_calibrated()  # resolve before jit/shard_map tracing
     n = batch.num_reads
     perm, bounds = _block_permutation(n, blocks, paired_split)
     work = ReadBatch(
@@ -624,32 +618,7 @@ def _blockwise_step1_3(batch, base, cfg, blocks, log, paired_split=None):
                 work, cfg.smooth, make_mesh((blocks, 1)), axes=("data",)
             )
     else:
-        size = max(hi - lo for lo, hi in bounds)
-        parts = []
-        for b, (lo, hi) in enumerate(bounds):
-            take = hi - lo
-            # pad every block to the common shape so a single jit compilation
-            # serves all blocks (dummy 1-base reads, lowest quality)
-            seqs_b = np.zeros((size, batch.max_len), np.uint8)
-            quals_b = np.zeros((size, batch.max_len), np.uint8)
-            lens_b = np.ones(size, np.int32)
-            seqs_b[:take] = work.seqs[lo:hi]
-            quals_b[:take] = work.quals[lo:hi]
-            lens_b[:take] = work.lengths[lo:hi]
-            if take < size:
-                seqs_b[take:, 0] = 1
-                quals_b[take:, 0] = 33
-            sub = ReadBatch(seqs=seqs_b, quals=quals_b, lengths=lens_b)
-            with log.step(f"block {b+1}/{blocks}: EBWT+smooth+invert ({take} reads)"):
-                out, _ = smooth_fastq(sub, cfg.smooth)
-            parts.append(ReadBatch(seqs=out.seqs[:take], quals=out.quals[:take],
-                                   lengths=out.lengths[:take]))
-        width = max(p.max_len for p in parts)
-        merged_w = ReadBatch(
-            seqs=np.concatenate([np.pad(p.seqs, ((0, 0), (0, width - p.max_len))) for p in parts]),
-            quals=np.concatenate([np.pad(p.quals, ((0, 0), (0, width - p.max_len))) for p in parts]),
-            lengths=np.concatenate([p.lengths for p in parts]),
-        )
+        merged_w = _blocks_sequential(work, bounds, cfg.smooth, log)
 
     # back to input order: file-1 reads then file-2 reads (the paired
     # re-split in _finish_pipeline cuts at paired_split)
@@ -662,6 +631,39 @@ def _blockwise_step1_3(batch, base, cfg, blocks, log, paired_split=None):
     hdrs = batch.headers if (cfg.headers or cfg.mode == 3) else None
     with open(base + ".fq", "wb") as f:
         f.write(format_fastq(merged, headers=hdrs))
+
+
+def _blocks_sequential(work: ReadBatch, bounds, smooth_cfg, log) -> ReadBatch:
+    """Smooth each read block [lo, hi) of `work` on its own, one after the
+    other on the default device, and concatenate the outputs in block order."""
+    from bfqzip_tpu.engine import smooth_fastq
+
+    size = max(hi - lo for lo, hi in bounds)
+    parts = []
+    for b, (lo, hi) in enumerate(bounds):
+        take = hi - lo
+        # pad every block to the common shape so a single jit compilation
+        # serves all blocks (dummy 1-base reads, lowest quality)
+        seqs_b = np.zeros((size, work.max_len), np.uint8)
+        quals_b = np.zeros((size, work.max_len), np.uint8)
+        lens_b = np.ones(size, np.int32)
+        seqs_b[:take] = work.seqs[lo:hi]
+        quals_b[:take] = work.quals[lo:hi]
+        lens_b[:take] = work.lengths[lo:hi]
+        if take < size:
+            seqs_b[take:, 0] = 1
+            quals_b[take:, 0] = 33
+        sub = ReadBatch(seqs=seqs_b, quals=quals_b, lengths=lens_b)
+        with log.step(f"block {b+1}/{len(bounds)}: EBWT+smooth+invert ({take} reads)"):
+            out, _ = smooth_fastq(sub, smooth_cfg)
+        parts.append(ReadBatch(seqs=out.seqs[:take], quals=out.quals[:take],
+                               lengths=out.lengths[:take]))
+    width = max(p.max_len for p in parts)
+    return ReadBatch(
+        seqs=np.concatenate([np.pad(p.seqs, ((0, 0), (0, width - p.max_len))) for p in parts]),
+        quals=np.concatenate([np.pad(p.quals, ((0, 0), (0, width - p.max_len))) for p in parts]),
+        lengths=np.concatenate([p.lengths for p in parts]),
+    )
 
 
 def _load_fq(base: str) -> ReadBatch:

@@ -41,6 +41,16 @@ class StepLogger:
         print("command line: " + " ".join(sys.argv), file=self.f)
         self.f.flush()
 
+    def devices(self) -> None:
+        """Name the devices the run uses, so a CPU fallback shows in the log."""
+        import jax
+
+        devs = jax.devices()
+        self.info(
+            f"device: platform={devs[0].platform} kind={devs[0].device_kind} "
+            f"count={len(devs)}"
+        )
+
     @contextlib.contextmanager
     def step(self, name: str):
         t0 = time.time()

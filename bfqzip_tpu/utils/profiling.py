@@ -2,7 +2,7 @@
 
 The reference instruments itself with malloc interposition (per-phase peak
 heap via malloc_count, bfq_int.cpp:976-1001) and wall-clock timers around
-every step (BFQzip.py:98-145).  The TPU equivalents:
+every step (BFQzip.py:98-145).  The equivalents here:
 
   * phase timers (host wall clock),
   * device memory statistics per phase (jax device memory_stats — the analog

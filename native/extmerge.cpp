@@ -1,7 +1,7 @@
 // External-memory stage-1 merge: k-way interleave of per-chunk suffix orders.
 //
 // The out-of-core pipeline (bfqzip_tpu/external.py) sorts each read chunk's
-// suffixes on the TPU (bounded HBM) and merges the chunk orders here on the
+// suffixes on the device (bounded device memory) and merges the chunk orders here on the
 // host — the role eGap's disk-based merge plays for the reference
 // (BFQzip_ext.py:172-177; eGap --em --mem).  The merge never materialises
 // suffix keys: the comparator walks the text directly (0 = terminator/pad

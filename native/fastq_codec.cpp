@@ -2,7 +2,7 @@
 //
 // The reference's IO is getline loops and `sed` subprocesses
 // (reference BFQzip.py:19-21, bfq_int.cpp:800-806).  Multi-GB FASTQ parsing
-// is a host-side bottleneck for a TPU pipeline, so this library turns raw
+// is a host-side bottleneck for a device pipeline, so this library turns raw
 // FASTQ bytes into the dense arrays the device consumes ([N,L] codes/quals,
 // lengths, header offsets) and back, in a single pass each way.  Exposed with
 // a C ABI and bound from Python via ctypes (bfqzip_tpu/utils/native.py).

@@ -3,7 +3,7 @@
 //
 // Role: the fast CPU path for step-5 entropy coding (the reference shells out
 // to 7z PPMd / libbsc here, BFQzip.py:253-275).  The JAX implementation is
-// the TPU path; both sides interoperate on the container format, so streams
+// the JAX path; both sides interoperate on the container format, so streams
 // encoded on device decode on host and vice versa.
 
 #include <cstdint>

@@ -84,3 +84,13 @@ def test_gzip_input(tmp_path):
     gz.write_bytes(gzip.compress(raw))
     batch = read_fastq(str(gz))
     assert batch.num_reads == 100
+
+
+def test_step_logger_names_the_device(tmp_path):
+    from bfqzip_tpu.utils.logging import StepLogger
+
+    log = StepLogger(str(tmp_path / "run.log"))
+    log.devices()
+    log.close()
+    text = (tmp_path / "run.log").read_text()
+    assert "device: platform=cpu kind=cpu count=" in text

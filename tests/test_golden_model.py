@@ -2,7 +2,7 @@
 
 The golden .fq files were produced by the reference's own compiled bfq_int
 (tests/make_golden.py); byte equality here means the numpy model reproduces the
-reference exactly, which in turn anchors the JAX/TPU path.
+reference exactly, which in turn anchors the JAX path.
 """
 
 import numpy as np

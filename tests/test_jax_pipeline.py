@@ -63,6 +63,23 @@ def test_bucket_padding_inert():
         assert bucket_shape(n1, w1) == (n1, w1) or n1 <= 128
 
 
+def test_pad_to_shape_smooths_the_same():
+    """pad_batch to an explicit larger shape (how several datasets share one
+    compilation) leaves the smoothed reads unchanged."""
+    from bfqzip_tpu.io.fastq import pad_batch
+
+    rng = np.random.default_rng(11)
+    batch = tiny_batch(rng, n_reads=37, min_len=5, max_len=21, n_frac=0.02)
+    padded = pad_batch(batch, (50, 30))
+    assert padded.seqs.shape == (50, 30)
+    assert np.all(padded.lengths[37:] == -1)
+    a, _ = smooth_fastq(batch, SmoothConfig(mode=3, k=4, min_cluster=3))
+    b, _ = smooth_fastq(padded, SmoothConfig(mode=3, k=4, min_cluster=3))
+    assert format_fastq(a, headers=None) == format_fastq(
+        type(a)(seqs=b.seqs[:37], quals=b.quals[:37], lengths=b.lengths[:37]), headers=None
+    )
+
+
 def test_ebwt_flat_doubling_agree():
     """Both sort strategies must produce identical artifacts; the flat path
     additionally carries the smoother's predecessor symbols (bwt[LF])."""

@@ -7,7 +7,7 @@
 # Mirrors the reference validation pipeline
 # (reference variant_calling/pipeline_SNPsCall.sh:15-50): bwa index+mem ->
 # MarkDuplicatesSpark -> HaplotypeCaller -> SelectVariants(SNP) ->
-# VariantFiltration.  Runs entirely off-TPU; tool paths are configurable via
+# VariantFiltration.  Runs entirely on the host; tool paths are configurable via
 # environment variables.
 set -euo pipefail
 
